@@ -1,6 +1,6 @@
-"""kspecanal_tpu — a TPU-native spectrum/waterfall analysis framework.
+"""kspecanal_tpu — accelerator-native spectrum/waterfall analysis framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 RTL-SDR spectrum analyzer ``hanishkvc/prgs-sdr-kspecanal`` (see SURVEY.md):
 overlapped sliding-window FFT spectra, max/min/avg/cur signal-level curves,
 waterfall heatmap, zero-span and stepped multi-band scan modes with

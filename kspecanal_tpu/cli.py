@@ -86,7 +86,8 @@ _KEYMAP = {
     "BSCANRANGEBASEDATAISRAW": ("b_scan_range_base_data_is_raw", _boolean),
     "ZEROSPANSAVEFILE": ("zero_span_save_file", str),
     "ZEROSPANPLAYFILE": ("zero_span_play_file", str),
-    # New (no reference analog): MXU matmul precision for the DFT paths.
+    # New (no reference analog): matmul precision of the DFT-by-matmul
+    # path (parallel/fftshard).
     "TPUPRECISION": ("tpu_precision", lambda v: _precision_name(v)),
     # The reference's own TODO (README.rst:608-611): bypass the outer K
     # bins of each displayed curscan (Nyquist-edge leakage).
@@ -96,7 +97,7 @@ _KEYMAP = {
 
 def _precision_name(v: str) -> str:
     """Validate at parse time — a bad value would otherwise only surface
-    at first kernel build on the TPU."""
+    when the first matmul path is traced."""
     up = v.upper()
     if up not in ("DEFAULT", "HIGH", "HIGHEST"):
         raise CliError(f"tpuPrecision [{v}] not one of default|high|highest")
@@ -232,13 +233,11 @@ def make_source(cfg: SpecConfig, run: RunOptions):
     raise CliError(f"unknown tpuSource [{run.source}]")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_session(cfg: SpecConfig, run: RunOptions):
+    """The source, renderer and mesh a run asks for, wrapped in a
+    :class:`~kspecanal_tpu.session.Session` ready for ``do_run``."""
     from kspecanal_tpu import session as sess_mod
 
-    cfg, run = parse_args(sys.argv[1:] if argv is None else argv)
-    from kspecanal_tpu.utils.logging import set_iter_logging
-    set_iter_logging(run.log_iter)
-    print_info(cfg)
     source = None
     sweep_prefetch = False
     if cfg.prg_mode != MODE_ZEROSPANPLAY:
@@ -284,11 +283,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         from kspecanal_tpu.parallel.mesh import make_mesh
         mesh = make_mesh(time=run.mesh_time, band=run.mesh_band)
 
-    sess = sess_mod.Session(cfg, source, renderer, mesh=mesh,
+    return sess_mod.Session(cfg, source, renderer, mesh=mesh,
                             state_file=run.state_file,
                             catch_up=run.catch_up,
                             sweep_prefetch=sweep_prefetch,
                             render_every=run.render_every)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from kspecanal_tpu import session as sess_mod
+    from kspecanal_tpu.utils.compile_cache import enable_compile_cache
+
+    cfg, run = parse_args(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
+    from kspecanal_tpu.utils.logging import set_iter_logging
+    set_iter_logging(run.log_iter)
+    print_info(cfg)
+    sess = build_session(cfg, run)
+    source, renderer = sess.source, sess.renderer
 
     def _sigint(signum, stack):  # kspecanal.py:1118-1123
         log_info("sigint: quiting on user request...")

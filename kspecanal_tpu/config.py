@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native kspecanal framework.
+"""Typed configuration for the kspecanal accelerator framework.
 
 The reference (kspecanal.py) keeps all state in a mutable global dict ``gD``
 built from module-level ``g*`` defaults (kspecanal.py:41-75) that
@@ -88,11 +88,11 @@ class SpecConfig:
     scan_range_non_overlap: float = 0.5        # gScanRangeNonOverlap :54
     b_scan_range_base_data_is_raw: bool = False  # gbScanRangeBaseDataIsRaw :568
     b_use_psd: bool = False                    # gbUsePSD :350
-    # MXU matmul precision for the DFT paths (new, no reference analog):
-    # HIGHEST (default) holds ~1e-6 relative error vs the float64 oracle;
-    # HIGH (bf16x3 passes) trades ~1e-5 error for matmul throughput;
-    # DEFAULT (single bf16 pass) is the fast mode for 8-bit-ADC sources,
-    # whose quantization noise already dwarfs bf16 rounding.
+    # Matmul precision of the bin-sharded DFT (parallel/fftshard.py; new,
+    # no reference analog).  HIGHEST (default) keeps float32 products,
+    # ~1e-7 relative error vs the float64 oracle on the H100; HIGH and
+    # DEFAULT let XLA use TF32 tensor-core inputs, ~2.5e-4 (PERF.md).  The
+    # FFT chain and the curve folds ignore it.
     tpu_precision: str = "HIGHEST"             # tpuPrecision CLI option
     # Band-edge bin skip (the reference's own TODO, README.rst:608-611:
     # "Skip few fft bins at begin and end, of each curscan, so that
@@ -310,8 +310,8 @@ def cumu_weights(mode: str, n: int) -> Optional[np.ndarray]:
     which unrolls to
         ``w_0 = 2^-(n-1)``, ``w_i = 2^-(n-i)`` for i >= 1.
     Expressing it as a static weight vector turns the reference's serial
-    Python loop into one weighted reduction over the window axis (a matvec,
-    which XLA maps onto the MXU).  RAW keeps only the last spectrum.
+    Python loop into one weighted reduction over the window axis (a
+    matvec).  RAW keeps only the last spectrum.
     MAX/MIN have no weights (plain reductions) -> returns None.
     """
     if mode == CUMU_AVG:

@@ -68,7 +68,7 @@ class MatplotlibRenderer:
     # -- figure construction (kspecanal.py:1077-1115) --------------------
     def _build_figure(self):
         plt = self.plt
-        f = self.fig = plt.figure("kSpecAnal-TPU", figsize=(12, 8),
+        f = self.fig = plt.figure("kSpecAnal", figsize=(12, 8),
                                   constrained_layout=True)
         gs = f.add_gridspec(nrows=16, ncols=5)
         self.ax_levels = f.add_subplot(gs[:8, :4])
@@ -189,9 +189,8 @@ class MatplotlibRenderer:
     @staticmethod
     def _prompt(msg: str):
         """Interactive holds prompt only on a real TTY: a scripted run's
-        silent (non-EOF) stdin would otherwise block forever — a wedged
-        hold was observed holding the TPU open after a completed
-        headless session (round 4)."""
+        silent (non-EOF) stdin would otherwise block forever, holding
+        the device open after a completed headless session."""
         import sys
         if not sys.stdin.isatty():
             return

@@ -83,7 +83,7 @@ def decode_u8_iq(raw: np.ndarray,
 def split_u8_iq(raw: np.ndarray,
                 num_threads: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """uint8 interleaved I/Q -> UNDECODED u8 planes (no -127; the device
-    kernels decode in VMEM).  ``raw`` may be any shape whose last axis is
+    program decodes them).  ``raw`` may be any shape whose last axis is
     the interleaved byte stream; planes halve that axis."""
     lib = _load()
     raw = np.ascontiguousarray(raw, np.uint8)

@@ -2,8 +2,8 @@
 
 All sources speak one protocol: ``read(n) -> (re, im)`` float32 planes plus
 ``retune(fc, fs, gain) -> bool`` — the duck interface the DSP layer consumes.
-Complex never crosses the host<->device boundary (this TPU backend cannot
-transfer complex dtypes), so sources emit split planes directly.
+Complex never crosses the host<->device boundary: sources emit split
+float32 (or raw uint8) planes directly.
 
 Reference equivalents:
   * raw rtl_sdr capture format (uint8 interleaved IQ, value-127 offset):
@@ -29,9 +29,9 @@ SDR_READ_UNIT = 2 ** 18
 def split_u8_planes(raw: np.ndarray) -> Planes:
     """Interleaved raw u8 I/Q (last axis 2n bytes) -> UNDECODED u8 planes
     (last axis n), on the HOST: native C++ split when built, NumPy
-    strided copy otherwise.  The device kernels decode the planes in
-    VMEM; splitting host-side removes the on-device strided deinterleave
-    (~1 ms/dispatch measured r4) from every raw ship path."""
+    strided copy otherwise.  The device program decodes the planes;
+    splitting host-side keeps the strided deinterleave off the device on
+    every raw ship path."""
     try:
         from kspecanal_tpu.io import native_iq
         return native_iq.split_u8_iq(raw)
@@ -236,7 +236,7 @@ class DeviceSynthIQSource:
     Same tone math as :class:`SynthIQSource` (testfft.py:36-77: a tone per
     integer MHz in-band at offset ``fC - cur``, ``g*sin + j*g*cos``,
     random start phase per read) but generated as float32 planes directly
-    in device HBM under jit.  The host never touches sample data, so the
+    in device memory under jit.  The host never touches sample data, so the
     session pipeline runs at device rate — the simulator mode for
     benchmarking and soak-testing the full CLI path without an SDR and
     without the host->device transfer bottleneck.
@@ -291,9 +291,8 @@ def _sincos_from_phase_u32(phase):
     wrapped remainder bitcasts to a signed offset in [-pi/4, pi/4],
     where short Taylor polynomials reach ~3e-7 (sin, through x^9) /
     ~2.5e-8 (cos, through x^8) absolute error — beneath the tone-purity
-    floor the integer phase accumulator exists to protect.  Measured
-    ~2.7x faster than jnp.sin+jnp.cos on the v5e (round 4), which was
-    the devicesynth session bottleneck.
+    floor the integer phase accumulator exists to protect.  Its speed
+    against ``jnp.sin``/``jnp.cos`` on the H100 is in PERF.md.
     """
     import jax
     import jax.numpy as jnp
@@ -371,11 +370,11 @@ class DeviceNoiseIQSource:
     This is the source for measuring/soaking the SESSION MACHINERY
     (drivers, batched folds, dispatch) — the testfft-semantics tone
     SIMULATOR is :class:`DeviceSynthIQSource`, whose ~6
-    transcendentals/sample tone bank binds the loop once everything else
-    runs at kernel rate (scripts/session_ablate.py, round 4).
+    transcendentals/sample tone bank can bind the loop once everything
+    else runs at kernel rate.
 
     The batched session driver feeds the u8 planes to
-    ``curscan_auto_batched`` unchanged (in-VMEM decode); the host-side
+    ``curscan_auto_batched`` unchanged (decoded on the device); the host-side
     ``read()`` protocol decodes to float32 planes.  ``gain`` is carried
     for the source protocol but the amplitude is the full 8-bit range.
     """
@@ -426,7 +425,7 @@ class DeviceNoiseIQSource:
 def _build_device_noise(k: int, n: int):
     """Jitted (K, n) uint8 noise planes: each random u32 bitcasts into
     four uniform bytes — the cheapest correct on-device sample stream
-    (1 B/sample written; the DSP decodes in VMEM like any raw capture)."""
+    (1 B/sample written; the DSP decodes it like any raw capture)."""
     import jax
     import jax.numpy as jnp
     assert n % 4 == 0, n

@@ -4,7 +4,7 @@ The reference's only persistence is session recordings and signal-level
 baselines (SURVEY.md §5 checkpoint); long zero-span/scan monitoring runs
 lose their accumulated max/min/avg curves and waterfall history on any
 restart.  These helpers snapshot the full jitted-step state to a .npz so a
-session can resume exactly where it stopped (the TPU-native analog of
+session can resume exactly where it stopped (the analog of
 training checkpoint/resume).
 
 Format: one .npz with the state fields plus a config fingerprint; loading

@@ -2,7 +2,7 @@
 curves and a waterfall heatmap ring (the reference's ``zero_span`` loop,
 kspecanal.py:426-506).
 
-TPU-first structure: the whole per-iteration update — curscan, display
+Structure: the whole per-iteration update — curscan, display
 transform, curve cumulation, baseline adjust, heatmap row compress + ring
 write, level-curve compress — is ONE jitted pure function
 ``(state, iq) -> (state', view)``.  The reference interleaves this math
@@ -185,8 +185,8 @@ def zero_span_steps(state: ZeroSpanState, iq_re: jax.Array, iq_im: jax.Array,
     Returns (state', view-of-last-iteration) — or (state', None) when
     ``with_view`` is False (headless runs skip the display compression).
 
-    Used by the session loop for file/synth sources where the ~2-4 ms
-    per-dispatch RPC floor, not the DSP, bounds throughput
+    Used by the session loop for file/synth sources, where one dispatch
+    per block would leave the device idle between small launches
     (``tpuCatchUp K``).
     """
     from kspecanal_tpu.ops.spectrum import curscan_auto_batched, psd_welch
@@ -230,11 +230,9 @@ def display_updates(state: ZeroSpanState, spec_lin: jax.Array,
         # with w_i = 2^-(K-i); first-copy: closed-form cumu_weights.
         from kspecanal_tpu.config import CUMU_AVG, cumu_weights
         i = np.arange(k)
-        w_cont = jnp.asarray(2.0 ** -(k - i.astype(np.float64)), dbs.dtype)
-        w_first = jnp.asarray(cumu_weights(CUMU_AVG, k), dbs.dtype)
-        seeded_avg = cur * jnp.asarray(2.0 ** -k, dbs.dtype) + \
-            jnp.einsum("t,tf->f", w_cont, dbs)
-        fresh_avg = jnp.einsum("t,tf->f", w_first, dbs)
+        w_cont = 2.0 ** -(k - i.astype(np.float64))
+        seeded_avg = dsp.decay_carry(cur, k) + dsp.weighted_rows(w_cont, dbs)
+        fresh_avg = dsp.weighted_rows(cumu_weights(CUMU_AVG, k), dbs)
         return jnp.where(first, fresh_avg, seeded_avg)
 
     fft_max = fold(state.fft_max, "MAX", cfg.b_data_max, 1)
@@ -299,9 +297,9 @@ def zero_span_steps_u8_jit(state, raw, cfg: SpecConfig, adj=None,
     the u8 -> float32 decode (octave/load_rtlsdr.m semantics) runs
     on-device so the host ships 2 B/sample instead of 8 (the session
     fast path — host->device transfer dominates the live CLI loop
-    otherwise).  The bytes deinterleave into uint8 planes that the fused
-    TPU kernel decodes in VMEM (4x less HBM read than f32 planes); the
-    PSD cross-check path decodes eagerly (it runs through the XLA FFT)."""
+    otherwise).  The bytes deinterleave into uint8 planes that
+    ``curscan_auto_batched`` decodes inside the same program; the PSD
+    cross-check path decodes eagerly."""
     iq_re, iq_im = raw[..., 0::2], raw[..., 1::2]
     if cfg.b_use_psd:
         from kspecanal_tpu.parallel.stream import decode_u8_on_device

@@ -178,18 +178,42 @@ def reduce_windows(mode: str, mags: jax.Array,
 
     AVG/RAW use the closed-form weight vector from
     :func:`kspecanal_tpu.config.cumu_weights` — one weighted reduction
-    (a matvec onto the MXU) instead of a Python loop.  MAX/MIN are plain
+    (a matvec at HIGHEST precision, so no reduced-precision tensor-core
+    path rounds the curve) instead of a Python loop.  MAX/MIN are plain
     axis reductions.
     """
     if mode in (CUMU_AVG, CUMU_RAW):
         assert weights is not None
         w = jnp.asarray(weights, mags.dtype)
-        return jnp.einsum("w,wf->f", w, mags)
+        return jnp.einsum("w,wf->f", w, mags,
+                          precision=jax.lax.Precision.HIGHEST)
     if mode == CUMU_MAX:
         return jnp.max(mags, axis=0)
     if mode == CUMU_MIN:
         return jnp.min(mags, axis=0)
     raise ValueError(f"unknown cumuMode {mode!r}")
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def weighted_rows(w, rows: jax.Array) -> jax.Array:
+    """``sum_i w[i] * rows[i]`` at HIGHEST precision: the closed-form
+    decay fold of dB spectra.  Rows whose float32 weight is below the
+    normal range are masked out first — a long fold's oldest weights
+    underflow (or flush) to 0, and 0 times the -inf dB of an exactly-zero
+    bin would be NaN."""
+    w = jnp.asarray(w, rows.dtype)
+    rows = jnp.where((w >= _F32_TINY)[:, None], rows, 0.0)
+    return jnp.einsum("t,tf->f", w, rows, precision=jax.lax.Precision.HIGHEST)
+
+
+def decay_carry(cur: jax.Array, k: int) -> jax.Array:
+    """``cur * 2^-k``: a running Avg after k more halvings.  Once 2^-k
+    leaves float32's normal range the serial fold has rounded the carry
+    away too, so return zeros rather than multiply (-inf * 0 is NaN)."""
+    scale = np.float32(2.0 ** -k)
+    return cur * scale if scale >= _F32_TINY else jnp.zeros_like(cur)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,7 @@
-"""Matmul-based FFT on the MXU (two-factor Cooley-Tukey / Bailey 4-step).
+"""Matmul-based FFT (two-factor Cooley-Tukey / Bailey 4-step).
 
-XLA's built-in TPU FFT runs at ~0.2 TFLOP/s effective on this chip while
-the MXU does ~95 TFLOP/s (measured, scripts/perf_probe.py) — so we trade
-FLOPs for MXU-friendliness: decompose N = N1*N2 and express the DFT as two
-batched matmuls against precomputed DFT matrices plus a twiddle multiply:
+Decompose N = N1*N2 and express the DFT as two batched matmuls against
+precomputed DFT matrices plus a twiddle multiply:
 
     n = n1*N2 + n2,  k = k1 + N1*k2
     A[n1, n2] = x[n1*N2 + n2]
@@ -11,19 +9,17 @@ batched matmuls against precomputed DFT matrices plus a twiddle multiply:
     C[k1, n2] = B[k1, n2] * T[k1, n2],  T = W_N^(k1*n2) (twiddle)
     X[k1 + N1*k2] = sum_n2 C[k1, n2] * F2[k2, n2]      (matmul over N2)
 
-Cost: 8*N*(N1+N2) real FLOPs per transform vs 5*N*log2(N) for a radix-2
-FFT — ~14x more FLOPs at N=2048, but they run on a unit ~500x faster than
-wherever XLA's FFT lands, measured end-to-end ~10-40x faster here.
+Cost: 8*N*(N1+N2) real FLOPs per transform vs ~5*N*log2(N) for a radix-2
+FFT.  The single-device hot path uses XLA's FFT; this form exists for the
+bin-sharded transform (parallel/fftshard.py), whose only communication is
+the reduction over the N2 contraction, and for the byte accounting in
+scripts/collective_bytes.py.
 
-Complex arithmetic is carried as split float32 planes (TPUs have no complex
-ALU; this also keeps the host boundary complex-free).  Matmuls run with
-``preferred_element_type=float32`` and HIGHEST precision (bf16x3 passes on
-the MXU) to hold ~1e-6 relative error vs the float64 oracle — validated in
-tests/test_mxu_fft.py.
+Complex arithmetic is carried as split float32 planes.  Matmuls take an
+explicit ``precision``: HIGHEST keeps full float32 products (~1e-6
+relative error vs the float64 oracle, tests/test_dispatch.py).
 
-Factor choice: N1, N2 as close to sqrt(N) as possible, biased toward
-multiples of 128 (MXU tile) for large N; N=16384 -> 128x128 is a perfect
-fit.
+Factor choice: N1, N2 as close to sqrt(N) as possible (N1 >= N2).
 """
 from __future__ import annotations
 
@@ -44,7 +40,10 @@ _PRECISIONS = {
 
 
 def matmul_precision(name: str) -> jax.lax.Precision:
-    """Map a SpecConfig.tpu_precision string to a lax.Precision."""
+    """Map a SpecConfig.tpu_precision string to a lax.Precision.  On the
+    GPU, HIGHEST keeps float32 products; HIGH and DEFAULT let XLA feed
+    the tensor cores reduced-precision inputs (each rung's measured
+    error is in PERF.md)."""
     try:
         return _PRECISIONS[name.upper()]
     except KeyError:
@@ -52,22 +51,9 @@ def matmul_precision(name: str) -> jax.lax.Precision:
                          f"(one of {sorted(_PRECISIONS)})") from None
 
 
-# Per-size factor overrides (n -> (n1, n2)), tuned on hardware; see
-# scripts/perf_probe.py.  The stage-1 matmul contracts n1, so MXU-sized n1
-# (128) can beat the balanced split even though total FLOPs rise.
-# Measured (fused kernel, Gsamp/s): 2048: (64,32)=1.80 (128,16)=2.02;
-# 4096: (64,64)=2.93 best; 16384: (128,128)=5.0 best.
-FACTOR_OVERRIDES: dict = {2048: (128, 16)}
-
-
 @functools.lru_cache(maxsize=64)
 def _factorize(n: int) -> Tuple[int, int]:
-    """Split n = n1*n2 with n1 >= n2, both as close to sqrt(n) as we can
-    (unless overridden in FACTOR_OVERRIDES)."""
-    if n in FACTOR_OVERRIDES:
-        n1, n2 = FACTOR_OVERRIDES[n]
-        assert n1 * n2 == n
-        return (n1, n2)
+    """Split n = n1*n2 with n1 >= n2, both as close to sqrt(n) as we can."""
     best = (n, 1)
     r = int(np.sqrt(n))
     for n2 in range(r, 0, -1):
@@ -78,10 +64,10 @@ def _factorize(n: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _dft_tables_for(n: int, n1: int, n2: int):
-    """Precompute (F1re, F1im, F2re, F2im, Tre, Tim) float32 tables for an
-    explicit n = n1*n2 split."""
-    assert n1 * n2 == n, (n, n1, n2)
+def _dft_tables(n: int):
+    """(F1re, F1im, F2re, F2im, Tre, Tim) float32 tables for the
+    :func:`_factorize` split of n."""
+    n1, n2 = _factorize(n)
     k1 = np.arange(n1)
     k2 = np.arange(n2)
     f1 = np.exp(-2j * np.pi * np.outer(k1, k1) / n1)          # (n1, n1)
@@ -91,19 +77,13 @@ def _dft_tables_for(n: int, n1: int, n2: int):
         f1.real, f1.imag, f2.real, f2.imag, tw.real, tw.imag))
 
 
-def _dft_tables(n: int):
-    """Tables for the default `_factorize` split of n."""
-    n1, n2 = _factorize(n)
-    return _dft_tables_for(n, n1, n2)
-
-
 def fft_mxu(re: jax.Array, im: jax.Array,
             precision: jax.lax.Precision = _HIGHEST,
             ) -> Tuple[jax.Array, jax.Array]:
     """Batched complex DFT of split planes: (..., N) -> (..., N).
 
     Equivalent to ``jnp.fft.fft(re + 1j*im, axis=-1)`` split into planes,
-    but lowered to MXU matmuls.  N must be factorizable (any non-prime).
+    but lowered to matmuls.  N must be factorizable (any non-prime).
     """
     n = re.shape[-1]
     n1, n2 = _factorize(n)
@@ -142,9 +122,3 @@ def fft_mxu(re: jax.Array, im: jax.Array,
     # X[k1 + N1*k2] = D[k2, k1]: row-major flatten of (n2, n1)
     return (dr.reshape(batch + (n,)), di.reshape(batch + (n,)))
 
-
-def fft_mag_mxu(re: jax.Array, im: jax.Array,
-                precision: jax.lax.Precision = _HIGHEST) -> jax.Array:
-    """|FFT| via the MXU path."""
-    xr, xi = fft_mxu(re, im, precision=precision)
-    return jnp.sqrt(xr * xr + xi * xi)

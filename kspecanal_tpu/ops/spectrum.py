@@ -12,18 +12,18 @@ Per-window math being reproduced exactly (kspecanal.py:373,391,396):
     fftN   = winAdj * 2 * |fft(frame * win)| / fftSize
     spec   = fftshift(cumulate(fftN over windows))
 
-TPU-first design notes:
-  * IQ never crosses the host<->device boundary as complex — this backend
-    cannot transfer complex dtypes.  IQ is carried as two float32 planes
-    (re, im); the complex value exists only inside the jitted computation,
-    which XLA decomposes into float pairs anyway (TPUs have no complex ALU).
+Design notes:
+  * IQ crosses the host<->device boundary as two float32 (or raw uint8)
+    planes (re, im), never as complex: the complex value exists only
+    inside the jitted computation, so every source and driver speaks one
+    real-valued plane protocol.
   * All shapes are static: the valid window starts are precomputed from the
     config (kspecanal.py:368,385-390 semantics, including the per-index
     ``int(i*fftSize*nonOverlap)`` truncation and the early break on a short
     tail window), so XLA sees a fixed ``(num_windows, fft_size)`` batch.
   * The per-window cumulate (serial ``(a+b)/2`` decay / max / min / raw,
     kspecanal.py:392-395) becomes a single weighted reduction over the
-    window axis (see ``config.cumu_weights``) — a matvec the MXU eats.
+    window axis (see ``config.cumu_weights``), pinned to HIGHEST precision.
 """
 from __future__ import annotations
 
@@ -134,131 +134,15 @@ def psd_welch(iq_re: jax.Array, iq_im: jax.Array, cfg: SpecConfig) -> jax.Array:
     return jnp.fft.fftshift(pxx)
 
 
-def curscan_direct_batched(iq_re: jax.Array, iq_im: jax.Array,
-                           cfg: SpecConfig) -> jax.Array:
-    """Small-FFT curscan via a DIRECT DFT matmul.
-
-    For small fft_size (quickFullScan runs 64, kspecanal.py:920) the
-    problem is thousands of tiny FFTs — latency-bound on any FFT algorithm
-    but a single wide ``(B*W, N) @ (N, N)`` matmul on the MXU.  The N^2
-    FLOPs are irrelevant at these sizes; the matmul is one op.
-    Numerics identical to curscan (same framing/normalize/cumulate).
-    """
-    n = cfg.fft_size
-    starts = cfg.window_starts
-    k = np.arange(n)
-    dft = np.exp(-2j * np.pi * np.outer(k, k) / n)
-    fr = jnp.asarray(dft.real, jnp.float32)
-    fi = jnp.asarray(dft.imag, jnp.float32)
-    win = jnp.asarray(window_lut(cfg.window, n), jnp.float32)
-    adj = win_adj(cfg.window, n)
-
-    def one(re_row, im_row):
-        from kspecanal_tpu.ops.mxu_fft import matmul_precision
-        ar = frame_signal(re_row, starts, n) * win     # (W, n)
-        ai = frame_signal(im_row, starts, n) * win
-        hi = matmul_precision(cfg.tpu_precision)
-        xr = (jnp.dot(ar, fr.T, precision=hi)
-              - jnp.dot(ai, fi.T, precision=hi))
-        xi = (jnp.dot(ai, fr.T, precision=hi)
-              + jnp.dot(ar, fi.T, precision=hi))
-        mags = (adj * 2.0 / n) * jnp.sqrt(xr * xr + xi * xi)
-        w = cumu_weights(cfg.cur_scan_cumu_mode, cfg.num_windows)
-        from kspecanal_tpu.ops.dsp import reduce_windows
-        return jnp.fft.fftshift(
-            reduce_windows(cfg.cur_scan_cumu_mode, mags, w))
-
-    return jax.vmap(one)(iq_re, iq_im)
-
-
-def _fused_choice(cfg: SpecConfig, u8: bool = False) -> Optional[str]:
-    """Pick the fused-kernel layout for this (fft_size, precision) cell
-    from the hardware-measured table (scripts/perf_followup.py, v5e,
-    after the chunked block-diag optimization; round-5's 3M matmuls and
-    marginal-rate methodology lift the DEFAULT cells well above these
-    dispatch-diluted readings — docs/DESIGN.md — but do not change the
-    ORDERING except the u8@16384 case below):
-
-      Gsamp/s         HIGHEST   HIGH   DEFAULT
-      256   sublane     3.06            4.92     (direct DFT: 2.33)
-      512   sublane     3.33
-      1024  sublane     4.07     5.40   6.55
-      2048  sublane     4.00     5.59   8.27     (lane: 2.29/2.62/3.04)
-      4096  sublane     4.47     3.90   8.17     (lane auto-t_tile:
-                                                  3.19/3.78/6.02; a forced
-                                                  lane t_tile=4 HIGH hit
-                                                  4.35 but exceeds the
-                                                  auto VMEM budget)
-      8192  sublane     4.31            7.00     (lane: 3.09/-/5.55)
-      16384 lane        4.69     (6.16 sublane)  8.52 (sublane 8.28)
-
-    Sublane wins almost everywhere now that its stage-1 block-diag is
-    chunked to MXU tiles; the lane layout's 128-wide DFT factors keep a
-    slight edge only at 16384 HIGHEST/DEFAULT for f32 inputs (r5
-    marginal, DEFAULT: lane 23.4 vs sublane 21.9 Gsamp/s).  RAW u8
-    inputs at 16384 DEFAULT take the sublane kernel instead — the lane
-    kernel has no in-VMEM decode, so u8 would pay an XLA decode pass +
-    the full f32 HBM read (r5 marginal: sublane u8 39.9 vs that ~23.4
-    ceiling).
-    """
-    from kspecanal_tpu.ops import pallas_curscan as pk
-    fft = cfg.fft_size
-    prec = cfg.tpu_precision.upper()
-    sub_ok = pk.supports_fused_sublane(cfg)
-    lane_ok = pk.supports_fused(cfg) and fft >= 2048
-    if not (sub_ok or lane_ok):
-        return None
-    if sub_ok and lane_ok:
-        if fft >= 16384:
-            if prec == "DEFAULT" and u8:
-                return "sublane"
-            return "sublane" if prec == "HIGH" else "lane"
-        return "sublane"
-    return "sublane" if sub_ok else "lane"
-
-
 def curscan_auto_batched(iq_re: jax.Array, iq_im: jax.Array,
                          cfg: SpecConfig) -> jax.Array:
-    """Best batched curscan for the current backend:
-      * a fused Pallas kernel on TPU when fft_size is a multiple of 128
-        (layout per the measured table in ``_fused_choice``; the sublane
-        layout handles ANY window starts via in-VMEM lane rotation, so the
-        reference-default 90% fractional hop takes this path too);
-      * the packed read-input-once kernel for tiny fft_size (64/128 —
-        the quickFullScan regime, kspecanal.py:916-921), measured v5e
-        (scripts/perf_r2.py small, T=16384, ovl 0.5, Gsamp/s):
-          fft64:  packed 2.75/2.91 (HIGHEST/DEFAULT)  direct 2.22/2.31
-          fft128: packed 2.35/2.52                    direct 1.98/2.03
-        This regime is DISPATCH-floor-bound at that batch size: per
-        dispatch the kernel touches 67 MB of HBM (~0.2 ms at 350 GB/s)
-        while the whole call takes ~2.9 ms, and t_tile sweeps move it
-        < 8% — the bench measures it at 4x the batch to amortize.
-      * direct DFT matmul for other small fft_size (non-pow2 <= 256);
-      * the XLA gather+FFT chain otherwise."""
-    from kspecanal_tpu.ops import pallas_curscan
-    u8 = iq_re.dtype == jnp.uint8
-    if jax.default_backend() == "tpu":
-        choice = _fused_choice(cfg, u8)
-        if choice == "sublane":
-            # u8 planes pass straight through: the kernel decodes in VMEM
-            # (4x less HBM read — the DEFAULT-precision binding limit).
-            return pallas_curscan.curscan_fused_sublane(iq_re, iq_im, cfg)
-        if pallas_curscan.supports_fused_packed(cfg):
-            # u8-capable too (in-VMEM decode): the quickFullScan/fm_scan
-            # production ingest keeps 2 B/sample into the kernel.
-            return pallas_curscan.curscan_fused_packed(iq_re, iq_im, cfg)
-        if u8:
-            iq_re = iq_re.astype(jnp.float32) - 127.0
-            iq_im = iq_im.astype(jnp.float32) - 127.0
-            u8 = False            # decoded: the fall-through below must not
-        if choice == "lane":      # subtract 127 a second time
-            return pallas_curscan.curscan_fused(iq_re, iq_im, cfg)
-        if cfg.fft_size <= 256:
-            # No fused kernel applies (non-pow2 tiny fft, or 256 with a
-            # fractional hop whose full_size misaligns): the direct DFT
-            # matmul still beats the XLA chain here (2.33 Gsamp/s @256).
-            return curscan_direct_batched(iq_re, iq_im, cfg)
-    if u8:
+    """Batched curscan ``(B, full_size)`` planes -> ``(B, fft_size)``
+    spectra: the entry point every mode calls.  Raw uint8 planes (the
+    rtl_sdr capture format) decode with one elementwise ``x - 127`` that
+    XLA fuses into the framing gather; every FFT size then takes the
+    gather + FFT chain (:func:`curscan`), which on the H100 beat a direct
+    DFT matmul at every size measured (PERF.md)."""
+    if iq_re.dtype == jnp.uint8:
         iq_re = iq_re.astype(jnp.float32) - 127.0
         iq_im = iq_im.astype(jnp.float32) - 127.0
     return curscan_batched(iq_re, iq_im, cfg)

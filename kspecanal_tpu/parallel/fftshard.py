@@ -13,7 +13,7 @@ only communication is one reduction over the output grid:
                                          and a single psum finishes it)
 
 Per-shard matmul cost is 1/S of the total; the psum moves one (n1, n2)
-grid per window batch.  On a pod slice this axis lives on ICI.
+grid per window batch.
 
 Window framing: shard s owns columns n2_local = [s*n2/S, (s+1)*n2/S); its
 slice of frame A is x[n1*N2 + n2] for those n2 — a strided gather from the

@@ -10,9 +10,10 @@ Axes:
     owns a set of retune bands, stitched after an all-gather,
     SURVEY.md §2.3 EP row).
 
-On a multi-host pod slice the same mesh spans hosts
-(``jax.distributed.initialize`` + DCN for the cross-host edges); in tests
-it is built from virtual CPU devices.
+The axes follow the algorithm, not the interconnect: on one host the
+cards are joined all to all (NVLink), so any assignment of devices to
+mesh positions costs the same.  Tests build the mesh from virtual CPU
+devices.
 """
 from __future__ import annotations
 
@@ -34,25 +35,20 @@ def make_mesh(time: int = 1, band: int = 1,
     return Mesh(arr, axis_names=("time", "band"))
 
 
-def init_distributed(coordinator_address: Optional[str] = None,
-                     num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up: ``jax.distributed.initialize`` wrapper.
+def init_distributed(coordinator_address: str, num_processes: int,
+                     process_id: int) -> None:
+    """Multi-process bring-up: ``jax.distributed.initialize`` wrapper.
 
-    On a multi-host pod slice each host calls this before any jax use; the
-    global device list then spans the slice and :func:`make_mesh` lays the
-    'time'/'band' axes across ICI within a host's chips and DCN across
-    hosts (put 'band' — one all-gather per sweep — on the DCN edge and
-    'time' — per-step halo ppermute — on ICI; axis order in make_mesh's
-    reshape does exactly that when ``time`` divides the per-host chip
-    count).  No-op when jax.distributed is already initialized or args are
-    absent and the environment provides none (single-host dev).
+    Each process calls this before any jax use; the global device list
+    then spans every process and :func:`make_mesh` lays its axes across
+    them.  A second call in the same process is a no-op; every other
+    failure (bad address, unreachable coordinator) propagates.
     """
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id)
-    except (RuntimeError, ValueError):
-        # already initialized, or single-process environment
-        pass
+    except RuntimeError as e:
+        if "only be called once" not in str(e):
+            raise

@@ -9,7 +9,7 @@ window i reads samples ``[int(i*hop), int(i*hop)+fftSize)``, so adjacent
 blocks share up to ``fftSize - hop`` samples.  Per shard:
 
   1. ``ppermute`` the first ``halo`` samples to the LEFT neighbor on the
-     ICI ring (each shard receives its right-edge overlap),
+     ring (each shard receives its right-edge overlap),
   2. batched windowed FFTs over the shard's own window set,
   3. cross-shard reduction of the per-window spectra:
        AVG/RAW -> weighted partial + ``psum`` (the sequential (a+b)/2 decay
@@ -92,7 +92,7 @@ def _shard_body(iq_re, iq_im, starts_tbl, valid_tbl, weights_tbl,
     n = cfg.fft_size
 
     # 1. Halo: send my first `halo` samples to my LEFT neighbor; receive my
-    #    right-edge overlap from my right neighbor (ring over ICI).
+    #    right-edge overlap from my right neighbor (ring).
     perm = [(i, (i - 1) % plan.num_shards) for i in range(plan.num_shards)]
     halo_re = jax.lax.ppermute(iq_re[: plan.halo], "time", perm)
     halo_im = jax.lax.ppermute(iq_im[: plan.halo], "time", perm)
@@ -114,7 +114,7 @@ def _shard_body(iq_re, iq_im, starts_tbl, valid_tbl, weights_tbl,
     my_valid = valid_tbl[k][:, None]
     if mode in (CUMU_AVG, CUMU_RAW):
         partial = jnp.einsum("w,wf->f", weights_tbl[k].astype(mags.dtype),
-                             mags)
+                             mags, precision=jax.lax.Precision.HIGHEST)
         out = jax.lax.psum(partial, "time")
     elif mode == CUMU_MAX:
         local = jnp.max(jnp.where(my_valid, mags, 0.0), axis=0)

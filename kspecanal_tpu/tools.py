@@ -1,4 +1,4 @@
-"""Offline batch analysis of raw rtl_sdr capture files — the TPU-native
+"""Offline batch analysis of raw rtl_sdr capture files — the accelerated
 equivalent of ``octave/process_rtlsdr.m`` (which batch-decodes captures and
 plots normalized spectra of several signal variants, process_rtlsdr.m:16-62).
 

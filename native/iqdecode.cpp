@@ -57,8 +57,8 @@ void iq_decode_u8(const uint8_t* raw, float* re, float* im, size_t n,
 
 // Deinterleave RAW uint8 I/Q bytes into UNDECODED u8 planes (no value-127
 // subtraction): the session's 2 B/sample ship path sends planes and the
-// device kernels decode in VMEM — splitting here removes the on-device
-// strided deinterleave (~1 ms/dispatch measured) from every raw path.
+// device program decodes them — splitting here keeps the strided
+// deinterleave off the device on every raw path.
 void iq_split_u8(const uint8_t* raw, uint8_t* re, uint8_t* im, size_t n,
                  int num_threads) {
     if (num_threads <= 1 || n < (1u << 18)) {

@@ -1,5 +1,5 @@
 """Static per-step collective-byte accounting for the sharded paths
-(docs/SCALING.md; VERDICT r2 item 9).
+(docs/SCALING.md).
 
 Everything here is computable WITHOUT hardware: shapes come from the
 config/plan, collective sizes from the program structure
@@ -58,7 +58,7 @@ def rows(n_shards: int):
         # TP bins: one psum PAIR per window over the (n1, lanes) grid
         from kspecanal_tpu.ops.mxu_fft import _factorize
         n1, n2 = _factorize(f)
-        tp = cfg.num_windows * 2 * n1 * max(n2, 128) * 4
+        tp = cfg.num_windows * 2 * n1 * n2 * 4
         row = [name, fmt(halo), fmt(dp), fmt(tp)]
         if cfg.prg_mode == "SCAN":
             from kspecanal_tpu.models.scan import make_scan_plan

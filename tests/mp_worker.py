@@ -20,8 +20,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
+# The worker pair is a CPU rehearsal of the multi-process path: it stays
+# off any accelerator so it never competes with a process that holds one.
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/kspec_jax_cache")
+
+from kspecanal_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

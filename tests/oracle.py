@@ -3,7 +3,7 @@
 This is the test-side ground truth: a direct transcription of the *math*
 specified by SURVEY.md §3.3 (the ``sdr_curscan`` formula), §2.1
 (``data_cumu`` / ``data_proc`` semantics) and §3.4 (scan stitch index math),
-kept deliberately naive/serial so the TPU implementation can be checked
+kept deliberately naive/serial so the device implementation can be checked
 against it within SNR bounds (BASELINE.md correctness target).
 
 Reference derivations (file:line cited per function) — this is NOT the

@@ -609,7 +609,7 @@ def test_device_noise_source():
     assert int(state.iteration) == 8
     assert np.all(np.isfinite(np.asarray(state.fft_avg)))
     # the u8 planes through the batched fold == the SAME planes decoded
-    # on the host through the f32 fold (in-VMEM/XLA decode parity)
+    # on the host through the f32 fold (device decode parity)
     from kspecanal_tpu.models import zerospan as zs
     s3 = DeviceNoiseIQSource(seed=3)
     bre, bim = s3.read_device_batch(4, cfg.full_size)

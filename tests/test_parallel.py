@@ -210,36 +210,6 @@ def test_stream_rows_match_session_with_adj(rng):
                                np.asarray(state.fft_max), rtol=1e-5, atol=1e-5)
 
 
-def test_fused_kernels_inside_shard_map():
-    """The fused Pallas kernels must compose with shard_map (on a real pod
-    each shard's curscan runs the fused path); forced dispatch on the CPU
-    mesh, compared against the XLA-chain sharded result."""
-    from unittest import mock
-    from kspecanal_tpu.parallel import stream as stream_mod
-    from kspecanal_tpu.ops.pallas_curscan import curscan_fused_sublane
-    cfg = SpecConfig(prg_mode="ZEROSPAN", fft_size=512, sampling_rate=2.4e6,
-                     window=WINDOW_KAISER, cur_scan_non_overlap=0.5,
-                     x_res=256).finalize()
-    mesh = make_mesh(time=4)
-    rng = np.random.default_rng(21)
-    t = 8
-    re = jnp.asarray(rng.standard_normal((t, cfg.full_size)), jnp.float32)
-    im = jnp.asarray(rng.standard_normal((t, cfg.full_size)), jnp.float32)
-    base = stream_mod.waterfall_stream_sharded(re, im, cfg, mesh)
-    for fn in (curscan_fused_sublane,):
-        with mock.patch.object(stream_mod, "curscan_auto_batched",
-                               lambda r, i, c, f=fn: f(r, i, c)):
-            stream_mod._build_stream_sharded.cache_clear()
-            got = stream_mod.waterfall_stream_sharded(re, im, cfg, mesh)
-        stream_mod._build_stream_sharded.cache_clear()
-        np.testing.assert_allclose(np.asarray(got.rows),
-                                   np.asarray(base.rows),
-                                   rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got.fft_avg),
-                                   np.asarray(base.fft_avg),
-                                   rtol=1e-4, atol=1e-5)
-
-
 def test_raw_u8_device_decode_matches_host():
     """waterfall_stream_u8 (raw bytes decoded in-jit) == host decode path."""
     from kspecanal_tpu.io.sources import load_rtlsdr_capture

@@ -350,7 +350,7 @@ def test_catchup_with_adj_and_resume(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Multi-sweep scan batching + packed small-FFT kernel
+# Multi-sweep scan batching
 # ---------------------------------------------------------------------------
 
 def test_sweep_steps_matches_sequential():
@@ -382,31 +382,6 @@ def test_sweep_steps_matches_sequential():
         np.testing.assert_allclose(np.asarray(getattr(st_bat, f)),
                                    np.asarray(getattr(st_seq, f)),
                                    rtol=2e-5, atol=2e-5, err_msg=f)
-
-
-def test_packed_small_kernel_matches_chain():
-    """Packed read-once small-FFT kernel vs the XLA chain: every cumulate
-    mode, aligned and fractional hops, both tiny sizes."""
-    import jax.numpy as jnp
-    from kspecanal_tpu.config import WINDOW_KAISER
-    from kspecanal_tpu.ops.pallas_curscan import (curscan_fused_packed,
-                                                  supports_fused_packed)
-    from kspecanal_tpu.ops.spectrum import curscan_batched
-    rng = np.random.default_rng(17)
-    for fft, nono, mode in [(64, 0.5, "AVG"), (64, 0.1, "AVG"),
-                            (128, 0.5, "MAX"), (64, 0.5, "MIN"),
-                            (32, 0.25, "RAW"), (64, 1.0, "AVG")]:
-        cfg = SpecConfig(prg_mode="ZEROSPAN", fft_size=fft,
-                         sampling_rate=2.4e6, window=WINDOW_KAISER,
-                         cur_scan_non_overlap=nono,
-                         cur_scan_cumu_mode=mode, x_res=fft).finalize()
-        assert supports_fused_packed(cfg), (fft, nono)
-        re = jnp.asarray(rng.standard_normal((4, cfg.full_size)), jnp.float32)
-        im = jnp.asarray(rng.standard_normal((4, cfg.full_size)), jnp.float32)
-        np.testing.assert_allclose(
-            np.asarray(curscan_fused_packed(re, im, cfg, t_tile=2)),
-            np.asarray(curscan_batched(re, im, cfg)),
-            rtol=5e-5, atol=1e-7, err_msg=f"{fft}/{nono}/{mode}")
 
 
 def test_scan_catchup_matches_serial(tmp_path):

@@ -1,4 +1,4 @@
-"""Golden tests: the batched TPU-native curscan chain vs the serial float64
+"""Golden tests: the batched curscan chain vs the serial float64
 NumPy oracle (SURVEY.md §4 strategy (b)), plus synthetic-tone bin-position
 checks (strategy (a))."""
 import numpy as np
